@@ -7,6 +7,8 @@ import pytest
 
 from tsta_tpu import cli
 
+EXAMPLE = os.path.join(os.path.dirname(__file__), "golden", "example_big")
+
 
 def run_cli(argv, capsys):
     rc = cli.main(argv)
@@ -22,6 +24,15 @@ def test_psa_cli_golden(golden_dir, tmp_path, capsys):
     assert rc == 0
     assert out.strip() == open(d + "/ref.stdout").read().strip()
     assert out_file.read_bytes() == open(d + "/ref.out", "rb").read()
+
+
+def test_psa_cli_kernel_without_gpu_fails(golden_dir, tmp_path, capsys):
+    """--kernel cuda where JAX has no GPU is an error, not a fallback."""
+    d = os.path.join(golden_dir, "psa_small1")
+    out_file = tmp_path / "o.txt"
+    rc, out = run_cli(["psa", "-1", d + "/a.fa", "-2", d + "/b.fa",
+                       "-o", str(out_file), "--kernel", "cuda"], capsys)
+    assert rc == 1 and out == "" and not out_file.exists()
 
 
 def test_psa_cli_negative_flag_values(golden_dir, tmp_path, capsys):
@@ -91,7 +102,7 @@ def test_msa_cli_w30_golden(golden_dir, tmp_path, capsys):
     """example_msa.sh parameters (-X -3 -W 30) byte-parity."""
     out_file = tmp_path / "m.txt"
     rc, _ = run_cli(["msa", "-X", "-3", "-W", "30",
-                     "-i", "/root/reference/example/msa/seq/seq1.fa",
+                     "-i", os.path.join(EXAMPLE, "seq1.fa"),
                      "-o", str(out_file)], capsys)
     assert rc == 0
     ref = open(os.path.join(golden_dir, "example_big/msa_x3w30.out"),

@@ -57,6 +57,42 @@ sys.exit(1)
     assert "RAISED_OK" in proc.stdout
 
 
+def test_compat_builds_without_openmp(tmp_path):
+    """A compiler without OpenMP (no libgomp) still builds the compat
+    engine, single-threaded, with the golden round scores; the POA and
+    seqio helpers never ask for OpenMP."""
+    cc = tmp_path / "cc"
+    cc.write_text('#!/bin/sh\nfor a in "$@"; do [ "$a" = -fopenmp ] && '
+                  'exit 1; done\nexec gcc "$@"\n')
+    cc.chmod(0o755)
+    prog = r"""
+import os
+from tsta_tpu.config import AlignParams
+from tsta_tpu.io import read_records
+from tsta_tpu.models import msa as msa_model
+from tsta_tpu.native import build
+d = os.path.join("tests", "golden", "msa_small1")
+seqs = [r.sequence for r in read_records(os.path.join(d, "seqs.fa"))]
+out = msa_model.align_seqs(seqs, AlignParams(), engine="compat")
+build.load_poa()
+build.load_seqio()
+print("ROWS", out.round_scores)
+"""
+    env = dict(os.environ)
+    env.pop("PYTHONPATH", None)
+    env["JAX_PLATFORMS"] = "cpu"
+    env["CC"] = str(cc)
+    env["TSTA_NATIVE_CACHE"] = str(tmp_path / "native_cache")
+    proc = subprocess.run([sys.executable, "-c", prog], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=300)
+    assert proc.returncode == 0, (proc.stdout, proc.stderr)
+    from tsta_tpu.models import msa as msa_model
+    ref = msa_model.align_file(
+        os.path.join(REPO, "tests", "golden", "msa_small1", "seqs.fa"),
+        AlignParams(), engine="compat")
+    assert "ROWS %s" % ref.round_scores in proc.stdout
+
+
 def test_scan_rejects_positive_gap_open():
     a = np.frombuffer(b"ACGTACGT", np.uint8)
     with pytest.raises(ValueError, match="gap_open"):
@@ -72,10 +108,12 @@ def test_batch_rejects_pad_unsafe_params():
 
 
 def test_batch_pallas_traced_raises():
+    """Asking for the hand kernel where there is no GPU raises; nothing
+    falls back to an interpreter."""
     a = np.frombuffer(b"ACGTACGTACGT", np.uint8)
-    with pytest.raises(ValueError, match="score-only"):
+    with pytest.raises(ValueError, match="NVIDIA GPU"):
         pbatch.align_batch([(a, a)], AlignParams(), traced=True,
-                           kernel="pallas")
+                           kernel="cuda")
 
 
 def test_save_graph_without_npz_suffix(tmp_path):

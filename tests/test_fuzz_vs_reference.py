@@ -131,8 +131,8 @@ def test_msa_fuzz_vs_binary_mixed_alphabet(tmp_path):
 @pytest.mark.slow
 @pytest.mark.parametrize("seed", range(3))
 def test_batch_kernel_fuzz_vs_binary(tmp_path, seed):
-    """The packed batch kernel's scores (round-2 production path) vs the
-    reference binary, run fresh per pair.  Lengths are L=160 multiples
+    """The batch path's scores vs the reference binary, run fresh per
+    pair.  Lengths are L=160 multiples
     (reference heap-padding quirk); swap semantics replicated by
     align_batch."""
     from tsta_tpu.parallel import batch as pbatch
@@ -155,8 +155,7 @@ def test_batch_kernel_fuzz_vs_binary(tmp_path, seed):
         expected.append(int(r.stdout.split(b"=")[1]))
         pairs.append((np.frombuffer(s1, np.uint8),
                       np.frombuffer(s2, np.uint8)))
-    # kernel='pallas' routes through psa_diff (interpret mode on CPU)
-    res = pbatch.align_batch(pairs, AlignParams(), kernel="pallas")
+    res = pbatch.align_batch(pairs, AlignParams())
     got = [r.score for r in res]
     assert got == expected
 
@@ -164,11 +163,10 @@ def test_batch_kernel_fuzz_vs_binary(tmp_path, seed):
 @pytest.mark.slow
 @pytest.mark.parametrize("seed", range(3))
 def test_traced_packed_fuzz_vs_binary(tmp_path, seed):
-    """The packed traced path (round-3 production batch traceback) vs
-    the reference TSTA_psa alignments, byte-for-byte.  Mixed-length
-    batches exercise both the banded and lockstep walks; lengths are
-    L=160 multiples (reference heap-padding quirk)."""
-    from tsta_tpu.ops import psa_diff
+    """The traced batch path vs the reference TSTA_psa alignments,
+    byte-for-byte.  Lengths are L=160 multiples (reference heap-padding
+    quirk)."""
+    from tsta_tpu.parallel import batch as pbatch
 
     rng = np.random.default_rng(4000 + seed)
     pairs, expected = [], []
@@ -189,8 +187,7 @@ def test_traced_packed_fuzz_vs_binary(tmp_path, seed):
                          ref_out.read_bytes()))
         pairs.append((np.frombuffer(s1, np.uint8),
                       np.frombuffer(s2, np.uint8)))
-    out = psa_diff.psa_align_batch_traced_packed(
-        pairs, (2, -5, -2, -4))
+    out = pbatch.align_batch(pairs, AlignParams(), traced=True, swap=False)
     for (s, c, aln), (escore, eout) in zip(out, expected):
         assert s == escore
         assert b">1\n" + aln.a_row + b"\n>2\n" + aln.b_row == eout

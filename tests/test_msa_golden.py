@@ -11,6 +11,8 @@ from tsta_tpu.models import msa
 SMALL_CASES = ["msa_small1", "msa_small2", "msa_small3", "msa_small4",
                "msa_small5"]
 
+EXAMPLE = os.path.join(os.path.dirname(__file__), "golden", "example_big")
+
 
 def _params(d):
     txt = open(os.path.join(d, "params.txt")).read().split()
@@ -44,7 +46,7 @@ def test_rows_reconstruct_inputs(golden_dir):
 @pytest.mark.slow
 def test_big_example(golden_dir, tmp_path):
     """5 x 5kbp example: BASELINE.md golden values (README.md:30-41)."""
-    out = msa.align_file("/root/reference/example/msa/seq/seq1.fa",
+    out = msa.align_file(os.path.join(EXAMPLE, "seq1.fa"),
                          AlignParams())
     assert out.round_scores == [-5451, -3101, -1776, -870]
     assert out.add_len == [1885, 1714, 1531, 1338]

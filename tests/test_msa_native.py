@@ -1,4 +1,4 @@
-"""Tests for the TPU-native (exact int32) MSA engine."""
+"""Tests for the native (exact int32) MSA engine."""
 
 import numpy as np
 import pytest

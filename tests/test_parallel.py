@@ -5,7 +5,7 @@ import numpy as np
 import pytest
 
 from tsta_tpu.config import AlignParams
-from tsta_tpu.ops import psa_scan
+from tsta_tpu.ops import psa_scan, traceback
 from tsta_tpu.parallel import batch, longseq
 from tsta_tpu.parallel import mesh as meshlib
 
@@ -48,8 +48,11 @@ def test_batch_traced_planes(mesh81):
     res = batch.align_batch(pairs, AlignParams(), traced=True, mesh=mesh81)
     for (a, b), r in zip(pairs, res):
         ref = psa_scan.psa_align(a, b, AlignParams(), traced=True)
-        assert np.array_equal(np.asarray(ref.back), np.asarray(r.back))
-        assert np.array_equal(np.asarray(ref.fback), np.asarray(r.fback))
+        aln = traceback.decode_pair(np.asarray(ref.back),
+                                    np.asarray(ref.fback),
+                                    np.asarray(ref.eback), a, b)
+        assert (r.score, r.last, r.aln) == (int(ref.score), int(ref.last),
+                                            aln)
 
 
 @pytest.mark.parametrize("seed", range(3))
@@ -115,101 +118,88 @@ def test_msa_sharded_gap_run_crosses_shard_boundary(mesh24):
     assert shd.round_scores == ref.round_scores
 
 
-def test_diff_kernel_sharded_matches_unsharded(mesh81):
-    """The packed int32 kernel shard_maps over the data axis; per-pair
-    results must equal the single-device run (round-2: closes the
-    round-1 gap where sharded batches silently fell back to the scan)."""
-    from tsta_tpu.ops import psa_diff
+def test_batch_sharded_matches_unsharded(mesh81):
+    """Per-pair results of a batch sharded over the data axis equal the
+    single-device run."""
     rng = np.random.default_rng(21)
     pairs = []
-    for _ in range(13):  # not a multiple of 8 groups
+    for _ in range(13):  # not a multiple of 8
         n, m = int(rng.integers(30, 400)), int(rng.integers(30, 400))
         pairs.append((rng.integers(65, 69, n).astype(np.uint8),
                       rng.integers(65, 69, m).astype(np.uint8)))
-    p = (2, -5, -2, -4)
-    s1, c1 = psa_diff.psa_align_batch_diff(pairs, p)
-    s2, c2 = psa_diff.psa_align_batch_diff(pairs, p, mesh=mesh81)
-    assert np.array_equal(s1, s2)
-    assert np.array_equal(c1, c2)
+    assert (batch.align_batch(pairs, mesh=mesh81)
+            == batch.align_batch(pairs))
 
 
-def test_traced_packed_sharded_matches_unsharded(mesh24):
-    """Traced packed batches shard over the data axis: per-pair scores,
-    corners AND decoded alignments must equal the single-device packed
-    run (ROADMAP backlog 3; pairs are independent, so the shard_map
-    body has no collectives)."""
-    from tsta_tpu.ops import psa_diff
+def test_traced_batch_sharded_matches_unsharded(mesh24):
+    """Traced batches shard over the data axis: scores, corners and
+    alignments equal the single-device run (pairs are independent, so
+    the sharded program has no collectives)."""
     rng = np.random.default_rng(41)
     pairs = []
     for _ in range(5):  # not a multiple of the data axis
         n = int(rng.integers(60, 260))
-        m = int(rng.integers(40, n + 1))   # swapped contract: len(a) >= len(b)
+        m = int(rng.integers(40, n + 1))
         pairs.append((rng.integers(65, 69, n).astype(np.uint8),
                       rng.integers(65, 69, m).astype(np.uint8)))
-    p = (2, -5, -2, -4)
-    ref = psa_diff.psa_align_batch_traced_packed(pairs, p)
-    shd = psa_diff.psa_align_batch_traced_packed(pairs, p, mesh=mesh24)
-    for (s1, c1, a1), (s2, c2, a2) in zip(ref, shd):
-        assert (s1, c1) == (s2, c2)
-        assert a1 == a2
+    assert (batch.align_batch(pairs, traced=True, mesh=mesh24)
+            == batch.align_batch(pairs, traced=True))
 
 
-def test_traced_sharded_via_batch_api(mesh81):
-    """parallel.batch.align_batch_traced_device threads the mesh through
-    to the packed traced path."""
+def test_traced_manifest_sharded(mesh81, tmp_path):
+    """align_manifest threads the mesh through to the traced batch."""
     rng = np.random.default_rng(43)
-    pairs = [(rng.integers(65, 69, 150).astype(np.uint8),
-              rng.integers(65, 69, 120).astype(np.uint8))
-             for _ in range(3)]
-    params = AlignParams()
-    ref = batch.align_batch_traced_device(pairs, params)
-    shd = batch.align_batch_traced_device(pairs, params, mesh=mesh81)
-    assert [(s, c, a) for s, c, a in ref] == [(s, c, a) for s, c, a in shd]
+    lines = []
+    for k in range(3):
+        paths = []
+        for side, n in (("a", 150), ("b", 120)):
+            p = tmp_path / ("%d%s.fa" % (k, side))
+            p.write_bytes(b">s\n" + rng.choice(
+                np.frombuffer(b"ACGT", np.uint8), n).tobytes() + b"\n")
+            paths.append(str(p))
+        lines.append("p%d\t%s\t%s\n" % (k, paths[0], paths[1]))
+    man = tmp_path / "pairs.tsv"
+    man.write_text("".join(lines))
+    one = batch.align_manifest(str(man), traced=True,
+                               out_dir=str(tmp_path / "one"))
+    shd = batch.align_manifest(str(man), traced=True, mesh=mesh81,
+                               out_dir=str(tmp_path / "shd"))
+    assert one == shd
+    for k in range(3):
+        name = "p%d.txt" % k
+        assert ((tmp_path / "one" / name).read_bytes()
+                == (tmp_path / "shd" / name).read_bytes())
 
 
-def test_diff_kernel_sharded_on_2d_mesh(mesh24):
-    from tsta_tpu.ops import psa_diff
+def test_batch_sharded_on_2d_mesh(mesh24):
     rng = np.random.default_rng(22)
     pairs = [(rng.integers(65, 69, 200).astype(np.uint8),
               rng.integers(65, 69, 180).astype(np.uint8))
              for _ in range(3)]
-    p = (2, -5, -2, -4)
-    s1, c1 = psa_diff.psa_align_batch_diff(pairs, p)
-    s2, c2 = psa_diff.psa_align_batch_diff(pairs, p, mesh=mesh24)
-    assert np.array_equal(s1, s2)
-    assert np.array_equal(c1, c2)
+    assert (batch.align_batch(pairs, mesh=mesh24)
+            == batch.align_batch(pairs))
 
 
-def test_traced_sharded_chunks_over_budget(mesh24, monkeypatch):
-    """A sharded traced batch whose groups exceed the per-device plane
-    budget must split into sequential shard_map calls (not silently run
-    unsharded): results still equal the unconstrained run."""
-    from tsta_tpu.ops import psa_diff
+def test_traced_sharded_groups_over_budget(mesh24, monkeypatch):
+    """A sharded traced batch whose planes exceed the group budget splits
+    into several sharded calls; results equal the unconstrained run."""
     rng = np.random.default_rng(47)
     pairs = []
-    for _ in range(24):
-        n = int(rng.integers(60, 260))
+    for _ in range(10):
+        n = int(rng.integers(60, 120))
         m = int(rng.integers(40, n + 1))
         pairs.append((rng.integers(65, 69, n).astype(np.uint8),
                       rng.integers(65, 69, m).astype(np.uint8)))
-    p = (2, -5, -2, -4)
-    ref = psa_diff.psa_align_batch_traced_packed(pairs, p)
-    # ~1.5 MB/group plane cost at these shapes; a 1.7 MB budget forces
-    # g_local_max=1 -> g_call=2 -> two sequential shard_map calls
-    monkeypatch.setenv("TSTA_HBM_BUDGET_GB", "0.0016")
+    ref = batch.align_batch(pairs, traced=True)
     calls = []
-    orig = psa_diff._traced_sharded_call
+    orig = batch._align_group
 
-    def spy(*a, **kw):
-        fn = orig(*a, **kw)
-
-        def wrapped(*xs):
-            calls.append(1)
-            return fn(*xs)
-        return wrapped
-    monkeypatch.setattr(psa_diff, "_traced_sharded_call", spy)
-    shd = psa_diff.psa_align_batch_traced_packed(pairs, p, mesh=mesh24)
-    assert len(calls) >= 2, "expected the batch to split into chunks"
-    for (s1, c1, a1), (s2, c2, a2) in zip(ref, shd):
-        assert (s1, c1) == (s2, c2)
-        assert a1 == a2
+    def spy(group, *args):
+        calls.append(len(group))
+        return orig(group, *args)
+    monkeypatch.setattr(batch, "_align_group", spy)
+    monkeypatch.setattr(batch, "TRACED_GROUP_BYTES", 2 * 3 * 128 * 128)
+    shd = batch.align_batch(pairs, traced=True, mesh=mesh24)
+    assert len(calls) >= 2, "expected the batch to split into groups"
+    assert max(calls) <= 2 * 2      # two pairs per device, data axis 2
+    assert shd == ref

@@ -1,19 +1,20 @@
-"""Randomized-params differential fuzz of the production PSA batch
-paths (psa_diff.psa_align_batch_diff and psa_align_batch_traced_packed)
-vs the scan oracle.
+"""Randomized-params differential fuzz of the PSA batch paths
+(``parallel.batch.align_batch``, score-only and traced) vs the unpadded
+single-pair scan oracle.
 
 Existing tests pin fixed seeds and the default scoring; this sweep
 randomizes the scoring parameters too (any M>0>X, E<0, O<=0 -- the
-packed kernels' supported family), batch composition, and pair order
+batch paths' supported family), batch composition, and pair order
 (unswapped m>n included).  Alignments are validated by re-scoring.
-A 12-trial ad-hoc run of the same generator was all-exact (r3).
 """
 
 import numpy as np
 import pytest
 
-from tsta_tpu.ops import psa_diff, psa_scan
+from tsta_tpu.config import AlignParams
+from tsta_tpu.ops import psa_scan
 from tsta_tpu.ops import traceback as tb
+from tsta_tpu.parallel import batch
 
 pytestmark = pytest.mark.slow
 
@@ -30,16 +31,14 @@ def test_batch_paths_random_params(trial):
         for _ in range(nb)]
     refs = [psa_scan.psa_align(a, b, p) for a, b in pairs]
 
-    sc, co = psa_diff.psa_align_batch_diff(pairs, p)
-    for r, s, c in zip(refs, sc, co):
-        assert int(r.score) == int(s) and int(r.last) == int(c)
+    params = AlignParams(*p)
+    res = batch.align_batch(pairs, params, swap=False)
+    for r, got in zip(refs, res):
+        assert (int(r.score), int(r.last)) == (got.score, got.last)
 
-    class _P:
-        match, mismatch, gap_extend, gap_open = p
-
-    out = psa_diff.psa_align_batch_traced_packed(pairs, p)
+    out = batch.align_batch(pairs, params, traced=True, swap=False)
     for (a, b), r, (s, c, aln) in zip(pairs, refs, out):
         assert int(r.score) == int(s) and int(r.last) == int(c)
-        assert tb.score_alignment(aln.a_row, aln.b_row, _P) == int(c)
+        assert tb.score_alignment(aln.a_row, aln.b_row, params) == int(c)
         assert aln.a_row.replace(b"-", b"") == a.tobytes()
         assert aln.b_row.replace(b"-", b"") == b.tobytes()

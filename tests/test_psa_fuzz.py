@@ -81,14 +81,14 @@ def test_alignment_valid_and_scores_corner(seed):
 
 
 def test_tiny_sequences():
-    """1-3 bp inputs through both kernels."""
-    from tsta_tpu.ops import psa_pallas
+    """1-3 bp inputs through the single-pair and the batch paths."""
+    from tsta_tpu.parallel import batch
     for n, m in [(1, 1), (1, 5), (2, 3), (3, 1)]:
         a = np.frombuffer(b"ACGTA"[:n], np.uint8)
         b = np.frombuffer(b"TGCAT"[:m], np.uint8)
         p = AlignParams()
         H, _, _ = brute_gotoh(a, b, p)
         r1 = psa_scan.psa_align(a, b, p, traced=True)
-        r2 = psa_pallas.psa_align(a, b, p)
-        assert int(r1.score) == H[1:, 1:].max() == int(r2.score)
-        assert int(r1.last) == H[m, n] == int(r2.last)
+        r2 = batch.align_batch([(a, b)], p, swap=False)[0]
+        assert int(r1.score) == H[1:, 1:].max() == r2.score
+        assert int(r1.last) == H[m, n] == r2.last

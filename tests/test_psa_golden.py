@@ -12,6 +12,8 @@ from tsta_tpu.ops import traceback
 SMALL_CASES = ["psa_small1", "psa_small2", "psa_small3", "psa_small4",
                "psa_small5", "psa_small6", "psa_small7"]
 
+EXAMPLE = os.path.join(os.path.dirname(__file__), "golden", "example_big")
+
 
 def _params(d):
     txt = open(os.path.join(d, "params.txt")).read().split()
@@ -48,8 +50,8 @@ def test_alignment_rescores_to_corner(golden_dir, case):
 
 @pytest.mark.slow
 def test_big_example_default(golden_dir, tmp_path):
-    out = psa.align_files("/root/reference/example/psa/seq/seqa1.fa",
-                          "/root/reference/example/psa/seq/seqb1.fa",
+    out = psa.align_files(os.path.join(EXAMPLE, "seqa1.fa"),
+                          os.path.join(EXAMPLE, "seqb1.fa"),
                           AlignParams(), traced=True, kernel="scan")
     assert out.score == -5  # README.md:19-21
     my = tmp_path / "my.out"
@@ -61,8 +63,8 @@ def test_big_example_default(golden_dir, tmp_path):
 
 @pytest.mark.slow
 def test_big_example_x3(golden_dir, tmp_path):
-    out = psa.align_files("/root/reference/example/psa/seq/seqa1.fa",
-                          "/root/reference/example/psa/seq/seqb1.fa",
+    out = psa.align_files(os.path.join(EXAMPLE, "seqa1.fa"),
+                          os.path.join(EXAMPLE, "seqb1.fa"),
                           AlignParams(mismatch=-3), traced=True, kernel="scan")
     assert out.score == -3  # example_psa.sh params
     my = tmp_path / "my.out"

@@ -1,10 +1,13 @@
 import gzip
 import io
+import os
 
 import pytest
 
 from tsta_tpu.io import (SeqRecord, read_fasta, read_fastq, read_records,
                          write_fasta, write_fastq)
+
+EXAMPLE = os.path.join(os.path.dirname(__file__), "golden", "example_big")
 
 
 def test_read_fasta_basic(tmp_path):
@@ -84,7 +87,7 @@ def test_write_gz(tmp_path):
 
 
 def test_read_reference_example():
-    recs = list(read_fasta("/root/reference/example/msa/seq/seq1.fa"))
+    recs = list(read_fasta(os.path.join(EXAMPLE, "seq1.fa")))
     assert len(recs) == 5
     assert all(len(r.sequence) > 4000 for r in recs)
 
@@ -158,7 +161,7 @@ def test_native_parity_fuzz(monkeypatch):
 @needs_native
 def test_native_parity_reference_example(monkeypatch):
     from tsta_tpu.io import seqio
-    with open("/root/reference/example/msa/seq/seq1.fa", "rb") as f:
+    with open(os.path.join(EXAMPLE, "seq1.fa"), "rb") as f:
         data = f.read()
     py, nat = _parse_both(data, monkeypatch)
     assert py == nat and len(nat) == 5

@@ -84,3 +84,27 @@ def test_graph_array_storage_growth(tmp_path):
     assert g2.weights == g.weights and g2.variants == g.variants
     assert [r.tolist() for r in g2.passing] == \
         [r.tolist() for r in g.passing]
+
+
+def test_compile_cache_defaults_to_the_checkout(monkeypatch):
+    import jax
+
+    from tsta_tpu.utils import cache
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        cache.enable_compile_cache()
+        assert jax.config.jax_compilation_cache_dir == os.path.join(
+            cache.CHECKOUT, ".tsta_cache", "jax")
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
+
+
+def test_compile_cache_honours_the_environment(monkeypatch, tmp_path):
+    import jax
+
+    from tsta_tpu.utils import cache
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    before = jax.config.jax_compilation_cache_dir
+    cache.enable_compile_cache()
+    assert jax.config.jax_compilation_cache_dir == before

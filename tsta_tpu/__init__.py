@@ -1,16 +1,15 @@
-"""TSTA-TPU: a TPU-native sequence-alignment engine.
+"""TSTA-TPU: a sequence-alignment engine in JAX for NVIDIA GPUs.
 
 A from-scratch reimplementation of the capabilities of the reference CPU tool
-TSTA (striped-SIMD + anti-diagonal difference-method aligner, see
-/root/reference):
+TSTA (striped-SIMD + anti-diagonal difference-method aligner):
 
 * Global pairwise alignment (Needleman-Wunsch, affine gaps) with and without
-  traceback -- exact int32 DP in JAX (``ops.psa_scan``) and a Pallas tiled
-  wavefront kernel (``ops.psa_pallas``) for TPU speed.
+  traceback -- exact int32 DP in JAX (``ops.psa_scan``) and a CUDA
+  wavefront kernel (``ops.psa_cuda``) for GPU speed.
 * Progressive partial-order-alignment (POA) multiple sequence alignment with
   heaviest-bundle consensus -- a bit-exact "compat" engine (C, ``native/``)
-  reproducing the reference's int8 difference/clamp semantics, and a
-  TPU-native exact engine (``ops.msa_native``).
+  reproducing the reference's int8 difference/clamp semantics, and an
+  exact device engine (``ops.msa_native``).
 * Batched, sharded execution over a ``jax.sharding.Mesh`` (``parallel/``).
 
 Scoring convention (matches reference psa/psa.c:114-117): match ``M`` (+2),

@@ -9,8 +9,7 @@ One binary with subcommands replaces the reference's three
 
 Scoring flags mirror the reference exactly: ``-M -X -E -O`` (psa/psa.c:546,
 msa/msa.c:81).  ``-T`` caps the compat MSA
-engine's OpenMP wavefront threads (TPU kernels ignore it -- XLA
-schedules those); ``-W`` maps to the compat MSA engine's stripe
+engine's OpenMP wavefront threads (the device engines ignore it); ``-W`` maps to the compat MSA engine's stripe
 multiplier and is ignored by the PSA kernels (exact arithmetic is
 block-size independent).  stdout of ``tsta psa`` matches the reference
 (``maxsorce=%d`` with the reference's -100 init floor, psa/psa.c:110,666).
@@ -32,8 +31,8 @@ def _add_scoring_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("-O", type=int, default=-4, help="gap-open score [-4]")
     p.add_argument("-T", type=int, default=0,
                    help="threads for the compat MSA engine's OpenMP "
-                        "wavefront [all cores]; ignored by the TPU "
-                        "kernels (XLA schedules those)")
+                        "wavefront [all cores]; ignored by the device "
+                        "engines")
     p.add_argument("-W", type=int, default=0,
                    help="block width multiplier: sets the compat MSA "
                         "engine's stripe geometry (reference bS, default "
@@ -42,8 +41,10 @@ def _add_scoring_flags(p: argparse.ArgumentParser) -> None:
     p.add_argument("--json", action="store_true",
                    help="emit a JSON result line instead of reference stdout")
     p.add_argument("--kernel", default="auto",
-                   choices=["auto", "scan", "pallas"],
-                   help="PSA kernel selection")
+                   choices=["auto", "scan", "cuda"],
+                   help="PSA DP engine: cuda = the GPU kernel (needs an "
+                        "NVIDIA GPU), scan = plain JAX, auto = cuda on a "
+                        "GPU, scan on the CPU")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="capture a jax.profiler trace into DIR "
                         "(TensorBoard/Perfetto)")
@@ -110,8 +111,7 @@ def cmd_msa(args) -> int:
 
 def cmd_msa_batch(args) -> int:
     """Many independent MSAs, pipelined so host graph fusion overlaps
-    device DP (msa_native.align_seqs_many; 28% measured wall reduction
-    over sequential runs on TPU -- see ROADMAP.md)."""
+    device DP (msa_native.align_seqs_many)."""
     import os
 
     from tsta_tpu.io import read_records
@@ -124,7 +124,7 @@ def cmd_msa_batch(args) -> int:
     if not paths:
         raise ValueError("empty input list")
     # multi-host: each process takes a strided slice of the input list
-    # (host-level scatter over DCN; same helper as align_manifest)
+    # (host-level scatter; same helper as align_manifest)
     from tsta_tpu.parallel.batch import stride_for_process
     n_proc = int(os.environ.get("TSTA_NUM_PROCESSES", "1"))
     gidx = stride_for_process(list(range(len(paths))))
@@ -212,7 +212,8 @@ def _is_int(s: str) -> bool:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(
-        prog="tsta", description="TPU-native sequence alignment (TSTA-TPU)")
+        prog="tsta", description="sequence alignment on the GPU with JAX "
+        "(TSTA-TPU)")
     sub = ap.add_subparsers(dest="cmd", required=True)
 
     p = sub.add_parser("psa", help="pairwise global alignment")
@@ -232,8 +233,8 @@ def main(argv=None) -> int:
                    help="MSA output file [output.txt]")
     p.add_argument("--engine", default="compat",
                    choices=["compat", "native"],
-                   help="compat = bit-exact vs reference; native = exact "
-                        "int32 DP on TPU")
+                   help="compat = bit-exact vs reference (C, host); "
+                        "native = exact int32 DP on the device")
     p.add_argument("--mesh", default=None, metavar="DATAxSEQ",
                    help="native engine only: device mesh, e.g. 1x4 "
                         "shards each round's columns over 4 devices "
@@ -269,6 +270,8 @@ def main(argv=None) -> int:
     if argv is None:
         argv = sys.argv[1:]
     args = ap.parse_args(_merge_negative_values(list(argv)))
+    from tsta_tpu.utils.cache import enable_compile_cache
+    enable_compile_cache()
     try:
         return args.fn(args)
     except (FileNotFoundError, ValueError) as e:

@@ -49,8 +49,8 @@ def stripe_permutation(L: int, lanes: int) -> np.ndarray:
 
     ``NUM2(j) = (j/L)*L + ((j%L) % W)*B + (j%L)/W`` with ``B=lanes``,
     ``W=L/B`` (psa/psa.c:112, msa/c-t-simd.c:14).  Only used by the compat
-    engine and by tests that compare raw traceback planes; the TPU kernels
-    use natural (row-major) layout.
+    engine and by tests that compare raw traceback planes; the device
+    engines use natural (row-major) layout.
     """
     W = L // lanes
     j = np.arange(L)

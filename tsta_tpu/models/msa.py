@@ -9,7 +9,7 @@ Two engines:
 
 * ``compat`` -- the native C engine (tsta_tpu/native/compat_msa.c), bit-exact
   against the reference binaries (golden-tested);
-* ``native`` -- exact int32 POA DP in JAX (ops/msa_native.py), the TPU-scaled
+* ``native`` -- exact int32 POA DP in JAX (ops/msa_native.py), the device
   path; same pipeline, textbook-exact recurrence without the reference's
   int8 clamps, so scores can differ (documented; usually equal or better).
 """

@@ -1,4 +1,4 @@
-"""Host-side POA graph for the TPU-native MSA engine.
+"""Host-side POA graph for the native (device) MSA engine.
 
 A clean partial-order graph with the reference's capabilities (node merge,
 edge weights, per-read passing sets, aligned-variant rings capped at one
@@ -344,7 +344,7 @@ class PoaGraph:
         ``(graph, seq, seq_no, order, align_rows)``, so replicated
         graphs on every host stay bit-identical when each replays the
         same few-KB delta (parallel/msa_multihost.py broadcasts it;
-        the TPU-native replacement for the reference's shared-memory
+        the replacement for the reference's shared-memory
         graph that all threads mutate in place, c-t-simd.c:659-977).
         Returns the number of nodes added.
         """

@@ -1,8 +1,8 @@
 """Build and load the native compat engine.
 
-The C sources are compiled on first use into a shared library cached next
-to the sources (keyed by a content hash), then loaded with ctypes.  No
-pybind11 dependency; the ABI is plain C.
+The C sources are compiled on first use into a shared library cached in
+the checkout's ``.tsta_cache/native/`` (keyed by a content hash), then
+loaded with ctypes.  No pybind11 dependency; the ABI is plain C.
 """
 
 from __future__ import annotations
@@ -13,19 +13,21 @@ import os
 import subprocess
 import threading
 
+from tsta_tpu.utils import cache
+
 _DIR = os.path.dirname(os.path.abspath(__file__))
 _LOCK = threading.Lock()
 _LIB = None
 
-CFLAGS = ["-O3", "-march=native", "-fopenmp", "-g", "-fPIC", "-shared",
-          "-Wall"]
+CFLAGS = ["-O3", "-march=native", "-g", "-fPIC", "-shared", "-Wall"]
 
 
-def _all_cflags():
-    """CFLAGS + optional extras from TSTA_NATIVE_CFLAGS (space-separated);
-    extras participate in the cache key so variant builds don't collide."""
+def _all_cflags(openmp: bool = False):
+    """CFLAGS (+ -fopenmp for the one source that uses OpenMP) + optional
+    extras from TSTA_NATIVE_CFLAGS (space-separated); extras participate
+    in the cache key so variant builds don't collide."""
     extra = os.environ.get("TSTA_NATIVE_CFLAGS", "").split()
-    return CFLAGS + extra
+    return CFLAGS + (["-fopenmp"] if openmp else []) + extra
 
 
 class MsaResultStruct(ctypes.Structure):
@@ -41,32 +43,50 @@ class MsaResultStruct(ctypes.Structure):
     ]
 
 
-def _compile(src: str, out: str) -> None:
+def _compile(src: str, out: str, openmp: bool) -> None:
     cc = os.environ.get("CC", "gcc")
-    cmd = [cc] + _all_cflags() + ["-o", out, src]  # in sync with cache key
+    cmd = [cc] + _all_cflags(openmp) + ["-o", out, src]  # as in the key
     proc = subprocess.run(cmd, capture_output=True, text=True)
     if proc.returncode != 0:
         raise RuntimeError("native build failed:\n%s" % proc.stderr)
 
 
-def _load_cached(srcname: str, stem: str) -> ctypes.CDLL:
-    """Compile ``srcname`` (if needed) into the content-hash-keyed cache
-    and load it.  Callers set restype/argtypes on the returned lib."""
-    src = os.path.join(_DIR, srcname)
+def _cached_path(src: str, stem: str, openmp: bool) -> str:
     cc = os.environ.get("CC", "gcc")
     h = hashlib.sha256()
     with open(src, "rb") as f:
         h.update(f.read())
-    h.update(" ".join([cc] + _all_cflags()).encode())  # flags in the key
-    digest = h.hexdigest()[:16]
-    cache_dir = os.environ.get(
-        "TSTA_NATIVE_CACHE",
-        os.path.join(os.path.expanduser("~"), ".cache", "tsta_native"))
+    h.update(" ".join([cc] + _all_cflags(openmp)).encode())  # flags in key
+    cache_dir = os.environ.get("TSTA_NATIVE_CACHE") or cache.cache_dir(
+        "native")
     os.makedirs(cache_dir, exist_ok=True)
-    out = os.path.join(cache_dir, "lib%s_%s.so" % (stem, digest))
-    if not os.path.exists(out):
-        _compile(src, out)
-    return ctypes.CDLL(out)
+    return os.path.join(cache_dir, "lib%s_%s.so" % (stem, h.hexdigest()[:16]))
+
+
+def _load_cached(srcname: str, stem: str, openmp: bool = False
+                 ) -> ctypes.CDLL:
+    """Compile ``srcname`` (if needed) into the content-hash-keyed cache
+    and load it.  Callers set restype/argtypes on the returned lib.
+
+    ``openmp`` sources build with -fopenmp where the toolchain has
+    OpenMP and single-threaded where it does not (a gcc without
+    libgomp): the compat engine guards every OpenMP use with _OPENMP and
+    computes identical values in sequential tile order."""
+    src = os.path.join(_DIR, srcname)
+    variants = [True, False] if openmp else [False]
+    paths = [_cached_path(src, stem, v) for v in variants]
+    for path in paths:
+        if os.path.exists(path):
+            return ctypes.CDLL(path)
+    errors = []
+    for v, path in zip(variants, paths):
+        try:
+            _compile(src, path, v)
+        except RuntimeError as e:
+            errors.append(e)
+            continue
+        return ctypes.CDLL(path)
+    raise errors[-1]
 
 
 def load() -> ctypes.CDLL:
@@ -75,7 +95,7 @@ def load() -> ctypes.CDLL:
     with _LOCK:
         if _LIB is not None:
             return _LIB
-        lib = _load_cached("compat_msa.c", "tsta_compat")
+        lib = _load_cached("compat_msa.c", "tsta_compat", openmp=True)
         lib.tsta_msa_run.restype = ctypes.c_int
         lib.tsta_msa_run.argtypes = [
             ctypes.POINTER(ctypes.c_char_p), ctypes.POINTER(ctypes.c_int),
@@ -150,9 +170,6 @@ def setup_poa_symbols(lib):
     """argtypes for poa_fast.c beyond toposort (idempotent)."""
     lp = ctypes.POINTER(ctypes.c_long)
     ip = ctypes.POINTER(ctypes.c_int)
-    lib.tsta_poa_hm1.restype = None
-    lib.tsta_poa_hm1.argtypes = [ctypes.c_long, ctypes.c_long, ip, lp,
-                                 ctypes.c_long, ctypes.c_long, lp]
     lib.tsta_poa_rank_kahn.restype = ctypes.c_long
     lib.tsta_poa_rank_kahn.argtypes = [ctypes.c_long, lp, lp, lp, lp,
                                        lp]

@@ -108,33 +108,6 @@ long tsta_poa_toposort(long n, const long *sptr, const long *sidx,
   return count;
 }
 
-/* Boundary column H(v,-1) recurrence (ops/msa_pallas._prepare): in topo
- * order, hm1[i+1] = o+e for sources, else max over preds' hm1 plus e --
- * preds[] entries are buffer ids (topo pos + 1; 0 = the virtual row,
- * hm1[0] = 0), so they index hm1 directly.  The Python version
- * vectorises chain runs but still pays ~25-30 ms of per-breaker work
- * at 50k nodes; this is the same recurrence in one pass. */
-void tsta_poa_hm1(long n_real, long max_in, const int *preds,
-                  const long *lens, long e, long o, long *hm1) {
-  hm1[0] = 0;
-  for (long i = 0; i < n_real; i++) {
-    long li = lens[i];
-    long v;
-    if (li == 0) {
-      v = o + e;
-    } else {
-      const int *row = preds + i * max_in;
-      long mx = hm1[row[0]];
-      for (long k = 1; k < li; k++) {
-        long x = hm1[row[k]];
-        if (x > mx) mx = x;
-      }
-      v = mx + e;
-    }
-    hm1[i + 1] = v;
-  }
-}
-
 /* Rank-keyed Kahn over the condensed column DAG
  * (models/poa_graph.msa_rows): pops the ready group with the smallest
  * topo rank (ranks are distinct, so the (rank, g) tuple order the
@@ -253,7 +226,7 @@ long tsta_poa_consensus(long n, const long *topo, const long *pptr,
 
 /* One fusion round over the graph's array-backed buffers
  * (models/poa_graph.PoaGraph storage; semantics reference:
- * ops/msa_native._merge's Python loop, itself the TPU-side
+ * ops/msa_native._merge's Python loop, itself the device-engine
  * re-design of the reference's node_fuse, msa/c-t-simd.c:659-977).
  * Writes bases/ndeg/preds/weights/passing/nvar/vars in place; the
  * caller pre-grows capacities (n + slen nodes, max in-degree + 1 pred

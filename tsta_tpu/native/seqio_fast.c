@@ -1,6 +1,6 @@
 /* Native FASTA/FASTQ parser.
  *
- * TPU-native counterpart of the reference's C seqio layer (seqio.c, 759
+ * This package's counterpart of the reference's C seqio layer (seqio.c, 759
  * LoC: buffered state-machine parser seqio.c:463-641, CRLF handling
  * seqio.c:454-456, format guess by first byte seqio.c:275-309).  This is
  * a fresh single-pass design over an in-memory buffer rather than a port

@@ -1,7 +1,7 @@
 """Exact affine-gap global alignment (Gotoh) as a JAX row scan.
 
 This is the reference oracle of the framework: pure ``lax.scan`` int32 DP,
-runs unchanged on CPU and TPU, and is bit-compatible with the reference's
+runs unchanged on the CPU and the GPU, and is bit-compatible with the reference's
 int8 *difference method* kernel (psa/psa.c:234-363) because for any sane
 scoring the reference's wrapping-int8 differences never overflow -- the
 difference representation is exact, so exact int32 arithmetic reproduces it.
@@ -37,7 +37,7 @@ reference's lazy-F two-pass (psa/psa.c:250-274): with o <= 0,
 where C(j) = max(diag(j), E(i,j)) and C(-1) = H(i,-1), because a gap
 re-opened from inside another gap is never strictly better.  The max is a
 cumulative max -- one ``lax.cummax`` per row -- which makes every row a pure
-vector op chain: ideal for the TPU VPU and for ``vmap`` batching.
+vector op chain: fit for ``vmap`` batching and sharding.
 """
 
 from __future__ import annotations

@@ -1,4 +1,4 @@
-"""Host-side decoding of PSA traceback planes into an aligned pair.
+"""Decoding of PSA traceback planes into an aligned pair (host or device).
 
 Port of the reference's sequential two-pass ``trace()`` walk
 (psa/psa.c:434-519), operating on natural-layout (row-major) planes instead
@@ -22,6 +22,8 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import jax
+import jax.numpy as jnp
 import numpy as np
 
 
@@ -104,35 +106,22 @@ def score_alignment(a_row: bytes, b_row: bytes, params) -> int:
 
 
 # ---------------------------------------------------------------------
-# Device-side decode of the Pallas kernel's packed plane.
+# Walks of the packed plane the CUDA kernel writes (ops/psa_cuda.py).
 #
 # The reference's trace() mutates the back plane as it walks: on a left
 # move whose fback marks an extended (or tie-continued) gap it forces
 # back[i][j-1] = 0, and symmetrically for up moves (psa/psa.c:450-459).
 # The mutated cell is always the next cell visited, so the walk is
-# equivalent to carrying a "forced move" flag -- which makes it a pure
-# function suitable for a lax.while_loop on device.  Only the move list
-# (<= m+n bytes) is transferred to the host, not the O(m*n) planes.
+# equivalent to carrying a "forced move" flag -- a pure function of the
+# packed plane (back*9 + f*3 + e; f/e 0 extend, 1 open, 2 open-tie).
 # ---------------------------------------------------------------------
-
-import functools
-
-import jax
-import jax.numpy as jnp
 
 
 def _decode_step(in_core, i, j, forced, code, fprev, eprev):
-    """The ONE copy of the walk's move + gap-run-propagation rules
-    (reference trace() semantics, psa/psa.c:450-459): given the current
-    cell's packed code, the entered-left cell's f-code and entered-up
-    cell's e-code (callers fetch these however their storage dictates
-    -- XLA gather, SMEM band, chunk window), return (move, forced_next).
-
-    Works on scalars and on (P,) vectors alike; used by every device
-    walk (_decode_moves, _decode_moves_bounded, _decode_moves_packed,
-    _walk_kernel, _walk_kernel_packed) so the byte-parity-critical tie
-    rules cannot diverge between paths.
-    """
+    """The walk's move + gap-run-propagation rules (reference trace()
+    semantics, psa/psa.c:450-459): given the current cell's packed code,
+    the entered-left cell's f-code and the entered-up cell's e-code,
+    return (move, forced_next).  Works on scalars and on vectors."""
     back = code // 9
     f = (code // 3) % 3   # 0 extend, 1 open, 2 open-tie
     e = code % 3
@@ -159,10 +148,10 @@ def _decode_step(in_core, i, j, forced, code, fprev, eprev):
 
 @jax.jit
 def _decode_moves(plane, m, n):
-    """plane: int8 packed as back*9 + f*3 + e (psa_pallas packing);
-    may be padded beyond (m, n) -- the walk starts at (m-1, n-1) and
-    never reads outside.  ``m``/``n`` may be TRACED so one compile
-    serves every pair of a padded bucket.
+    """Device walk: ``lax.while_loop`` over one packed plane, which may be
+    padded beyond (m, n) -- the walk starts at (m-1, n-1) and never reads
+    outside.  ``m``/``n`` may be traced, so one compile serves every pair
+    of a padded bucket, and ``jax.vmap`` walks a stack in lockstep.
 
     Returns (moves, count): moves[t] in {0:left, 1:diag, 2:up}, emitted
     from the walk start; count = number of moves until both i and j are
@@ -204,133 +193,65 @@ def _decode_moves(plane, m, n):
     return moves, t
 
 
-@jax.jit
-def _decode_moves_bounded(plane_c, i, j, t, forced, moves, base,
-                          prev_row=None):
-    """Chunk-bounded variant of _decode_moves for the chunked traced
-    path (psa_pallas.psa_align_traced_chunked): ``plane_c`` holds rows
-    [base, base + mc); the walk runs until it leaves the chunk
-    (i < base, with the boundary-tail case base == 0 walking j out).
-    ``prev_row`` is the previous chunk's LAST plane row -- the vertical
-    gap-run lookup at row base reads row base-1, which lives there.
-    Returns (i, j, t, forced, moves)."""
-    mc = plane_c.shape[0] * 4   # plane rows are 4-per-int32-word
-    if prev_row is None:
-        prev_row = jnp.zeros((plane_c.shape[1],), jnp.int32)
-
-    def cell(li, jj):
-        w = plane_c[jnp.clip(li >> 2, 0, plane_c.shape[0] - 1), jj]
-        return (w >> (8 * (li & 3))) & 0xFF
-
-    def cond(st):
-        i, j, t, forced, moves = st
-        more = jnp.logical_or(i >= 0, j >= 0)
-        in_chunk = jnp.logical_or(i >= base,
-                                  jnp.logical_and(base == 0, j >= 0))
-        return jnp.logical_and(more, in_chunk)
-
-    def body(st):
-        i, j, t, forced, moves = st
-        li = jnp.clip(i - base, 0, mc - 1)
-        in_core = jnp.logical_and(i >= 0, j >= 0)
-        code = jnp.where(in_core, cell(li, jnp.maximum(j, 0)), 0)
-        fprev = jnp.where(j > 0,
-                          (cell(li, jnp.maximum(j - 1, 0)) // 3) % 3,
-                          0)
-        up_code = jnp.where(
-            i - 1 >= base,
-            cell(jnp.clip(i - 1 - base, 0, mc - 1),
-                 jnp.maximum(j, 0)),
-            prev_row[jnp.maximum(j, 0)].astype(jnp.int32))
-        eprev = jnp.where(i > 0, up_code % 3, 0)
-        move, forced_next = _decode_step(in_core, i, j, forced, code,
-                                         fprev, eprev)
-        moves = moves.at[t].set(move.astype(jnp.int8))
-        di = jnp.where(move == 0, 0, 1)
-        dj = jnp.where(move == 2, 0, 1)
-        return i - di, j - dj, t + 1, forced_next, moves
-
-    return jax.lax.while_loop(cond, body, (i, j, t, forced, moves))
+_decode_moves_stack = jax.jit(jax.vmap(_decode_moves))
 
 
-@functools.partial(jax.jit, static_argnames=("Rp",))
-def _decode_moves_packed(plane, nm, Rp):
-    """Lockstep P-pair walk over the packed kernel's grouped plane.
+def walk_moves_host(plane: np.ndarray, m: int, n: int) -> np.ndarray:
+    """Host walk of one packed plane (rows may be padded beyond ``n``):
+    the same rules as :func:`_decode_step`, one cell at a time.  Returns
+    the moves from the walk start (0 left, 1 diag, 2 up)."""
+    stride = plane.shape[1]
+    cells = memoryview(np.ascontiguousarray(plane)).cast("B")
+    moves = bytearray()
+    i, j, forced = m - 1, n - 1, 0
+    while i >= 0 and j >= 0:
+        code = cells[i * stride + j]
+        move = forced - 1 if forced else code // 9
+        forced = 0
+        if move == 0:
+            f = (code // 3) % 3
+            if j > 0 and (f == 0 or (cells[i * stride + j - 1] // 3) % 3
+                          == 2):
+                forced = 1
+            j -= 1
+        elif move == 1:
+            i -= 1
+            j -= 1
+        else:
+            e = code % 3
+            if i > 0 and (e == 0 or cells[(i - 1) * stride + j] % 3 == 2):
+                forced = 3
+            i -= 1
+        moves.append(move)
+    moves.extend(b"\x00" * (j + 1) + b"\x02" * (i + 1))
+    return np.frombuffer(bytes(moves), np.uint8)
 
-    ``plane``: (m_pad // 4, S, LANES) int32 row-word plane from
-    psa_diff._psa_diff_traced_call (pair p's cell (i, j) is byte i%4 of
-    plane[i // 4, p*Rp + j//LANES, j % LANES]); ``nm``: (P, 2) int32
-    real lengths.  Same move semantics as :func:`_decode_moves`, all P
-    walks advanced together: the three plane reads per step (cell, left
-    neighbour, up neighbour) fuse into ONE gather of 3P elements, so
-    the scalar-HBM-gather latency that bounds the single-pair walk
-    (~1.2 us/read through XLA) is paid once per step for the whole
-    group.
 
-    Returns (moves, counts): moves (P, m_pad + Rp*LANES) int8, counts
-    (P,) int32.  Finished pairs park their writes in a dump slot and
-    stop advancing; the loop runs until the longest walk ends.
+def walk_planes(plane, lens: np.ndarray, pairs, engine: str = "host"
+                ) -> list:
+    """Alignments from a stack of packed planes.
+
+    ``plane`` (P, m_pad, n_pad) int8, on the device or the host;
+    ``lens`` (P, 2) real (n, m); ``pairs`` the P encoded (a, b) pairs.
+    ``engine`` 'host' copies the planes to the host and walks them there;
+    'device' walks all P in lockstep with :func:`_decode_moves` and copies
+    only the move lists (``ops/route.walk_engine`` chooses by shape).
     """
-    m_w, S, L = plane.shape
-    m_pad = m_w * 4
-    P = S // Rp
-    maxlen = m_pad + Rp * L
-    poff = jnp.arange(P, dtype=jnp.int32) * Rp
-    poff3 = jnp.tile(poff, 3)
-    pidx = jnp.arange(P, dtype=jnp.int32)
-
-    def cells3(i, j):
-        """One gather: codes at (i, j), (i, j-1), (i-1, j), clamped."""
-        i0 = jnp.maximum(i, 0)
-        j0 = jnp.maximum(j, 0)
-        ii = jnp.concatenate([i0, i0, jnp.maximum(i - 1, 0)])
-        jj = jnp.concatenate([j0, jnp.maximum(j - 1, 0), j0])
-        w = plane[ii >> 2, poff3 + jj // L, jj % L]
-        v = (w >> (8 * (ii & 3))) & 0xFF
-        return v[:P], v[P:2 * P], v[2 * P:]
-
-    def cond(st):
-        i, j, t, forced, moves = st
-        return jnp.any(jnp.logical_or(i >= 0, j >= 0))
-
-    def body(st):
-        i, j, t, forced, moves = st
-        active = jnp.logical_or(i >= 0, j >= 0)
-        in_core = jnp.logical_and(i >= 0, j >= 0)
-        code_raw, left_raw, up_raw = cells3(i, j)
-        code = jnp.where(in_core, code_raw, 0)
-        fprev = jnp.where(j > 0, (left_raw // 3) % 3, 0)
-        eprev = jnp.where(i > 0, up_raw % 3, 0)
-        move, forced_next = _decode_step(in_core, i, j, forced, code,
-                                         fprev, eprev)
-        # finished pairs write to the dump slot (maxlen) and stand still
-        tw = jnp.where(active, t, maxlen)
-        moves = moves.at[pidx, tw].set(move.astype(jnp.int8))
-        step = active.astype(jnp.int32)
-        di = jnp.where(move == 0, 0, 1) * step
-        dj = jnp.where(move == 2, 0, 1) * step
-        return i - di, j - dj, t + step, forced_next, moves
-
-    i0 = nm[:, 1] - 1
-    j0 = nm[:, 0] - 1
-    moves0 = jnp.zeros((nm.shape[0], maxlen + 1), jnp.int8)
-    i, j, t, _, moves = jax.lax.while_loop(
-        cond, body, (i0, j0, jnp.zeros_like(i0), jnp.zeros_like(i0),
-                     moves0))
-    return moves[:, :maxlen], t
-
-
-def decode_pair_device(plane, a: np.ndarray, b: np.ndarray) -> Alignment:
-    """Decode a device-resident packed plane into the aligned pair.
-
-    ``plane`` is the (m, n) int8 array produced by the Pallas traced
-    kernel (possibly still on device).  Byte-equivalent to running
-    ``decode_pair`` on the unpacked planes.
-    """
-    m, n = int(plane.shape[0]), int(plane.shape[1])
-    moves, count = _decode_moves(plane, m, n)
-    moves = np.asarray(moves)[:int(count)]
-    return emit_alignment(moves, a, b, n, m)
+    lens = np.asarray(lens)
+    if engine == "device":
+        moves, counts = _decode_moves_stack(
+            plane, jnp.asarray(lens[:, 1], jnp.int32),
+            jnp.asarray(lens[:, 0], jnp.int32))
+        moves, counts = np.asarray(moves), np.asarray(counts)
+        walked = [moves[k, :counts[k]] for k in range(len(pairs))]
+    elif engine == "host":
+        host = np.asarray(plane)
+        walked = [walk_moves_host(host[k], int(lens[k, 1]), int(lens[k, 0]))
+                  for k in range(len(pairs))]
+    else:
+        raise ValueError("unknown walk engine %r" % engine)
+    return [emit_alignment(mv, a, b, int(nm[0]), int(nm[1]))
+            for mv, (a, b), nm in zip(walked, pairs, lens)]
 
 
 def emit_alignment(moves: np.ndarray, a: np.ndarray, b: np.ndarray,
@@ -345,813 +266,3 @@ def emit_alignment(moves: np.ndarray, a: np.ndarray, b: np.ndarray,
     out_a = np.where(ca, a[np.clip(ai, 0, n - 1)], gap).astype(np.uint8)
     out_b = np.where(cb, b[np.clip(bi, 0, m - 1)], gap).astype(np.uint8)
     return Alignment(out_a[::-1].tobytes(), out_b[::-1].tobytes())
-
-
-# ---------------------------------------------------------------------
-# Banded-window Pallas walk: the lax.while_loop walk above pays ~1.2 us
-# of scalar-HBM-gather latency per plane read (measured; 3 reads/step).
-# The walk's moves go up/left only, so a 64x128 band DMA'd into SMEM
-# serves >= 63 steps of cheap scalar reads before refetching.
-# ---------------------------------------------------------------------
-
-from jax.experimental import pallas as pl           # noqa: E402
-from jax.experimental.pallas import tpu as pltpu    # noqa: E402
-
-_BAND_R = 128  # band rows (multiple of 8: DMA sublane starts must align
-               # to the int32 tiling)
-_BAND_W = 256  # band width in int32 WORDS (= 1024 packed cells); both
-               # the slice start and width must be 128-word-aligned
-               # (Mosaic: "slice shape along dim 1 must be aligned to
-               # tiling (128)" -- the round-2 full-width band tripped
-               # exactly this).
-               #
-               # Geometry matters more than size (r4 ablation): the walk
-               # moves up-left, consuming ~1 row AND ~1 cell per step, so
-               # steps-per-refetch = min(usable rows, usable cells) and
-               # the refetch DMA (~6 us strided) is THE per-step cost.
-               # The r3 band (24 x 4096 cells) refetched every 15-22
-               # steps (~350 ns/step amortised -- 85% of the measured
-               # ~0.6 us/step); 128 x 1024 cells at the same 128 KiB
-               # refetches every ~119 diagonal steps.  The 128-word
-               # column alignment floor keeps >= (band_w - 128) * 4
-               # cells usable left of any entry j, so width below 256
-               # words would leave pathological 0-cell windows.
-
-
-def _walk_kernel(nm_ref, plane_ref, moves_ref, count_ref, band_ref, sem,
-                 *, m_rows, n_w, band_w, band_r):
-    """plane_ref: (m_rows, n_w) int32 (4 packed int8 cells per word,
-    m_rows a multiple of 8 covering the walked m rows); Mosaic SMEM
-    scalars must be i32, hence the word packing + byte extracts.  The
-    band is a (_BAND_R, _BAND_W)-word window with 8-row / 128-word
-    aligned starts; the walk moves up/left only, so one fetch serves
-    hundreds of steps.  Real lengths ride in nm_ref (SMEM, traced):
-    one compile per shape."""
-    m = nm_ref[0, 1]
-    n = nm_ref[0, 0]
-
-    def refetch(i, j):
-        # aligned start covering rows i-1 and i: floor8(i-15) keeps
-        # i - bi in [15, 22] < _BAND_R
-        bi = pl.multiple_of(
-            jnp.clip(((i - (band_r - 9)) // 8) * 8, 0,
-                     m_rows - band_r), 8)
-        # word window placed so jw sits near its RIGHT edge (the walk
-        # moves left); both start and width 128-word-aligned
-        jw = j >> 2
-        wj = pl.multiple_of(
-            jnp.clip(((jw + 1 + 127) // 128) * 128 - band_w, 0,
-                     n_w - band_w), 128)
-        cp = pltpu.make_async_copy(
-            plane_ref.at[pl.ds(bi, band_r), pl.ds(wj, band_w)],
-            band_ref, sem)
-        cp.start()
-        cp.wait()
-        return bi, wj
-
-    def cell(li, j, wj0):
-        w = band_ref[li, (j >> 2) - wj0]
-        return (w >> ((j & 3) * 8)) & 0xFF
-
-    def cond(st):
-        i, j, t, forced, bi0, wj0 = st
-        return jnp.logical_or(i >= 0, j >= 0)
-
-    def body(st):
-        i, j, t, forced, bi0, wj0 = st
-        in_core = jnp.logical_and(i >= 0, j >= 0)
-        # reads touch rows i-1..i and words (j-1)>>2..j>>2
-        miss = jnp.logical_and(in_core, jnp.logical_or(
-            jnp.logical_or(
-                jnp.logical_and(i > 0, i - 1 < bi0),
-                jnp.logical_or(i < bi0, i >= bi0 + band_r)),
-            jnp.logical_or(
-                jnp.maximum(j - 1, 0) >> 2 < wj0,
-                j >> 2 >= wj0 + band_w)))
-
-        bi0, wj0 = jax.lax.cond(miss, lambda _: refetch(i, j),
-                                lambda _: (bi0, wj0), None)
-
-        li = jnp.maximum(i - bi0, 0)
-        code = jnp.where(in_core, cell(li, jnp.maximum(j, 0), wj0), 0)
-        fprev = jnp.where(
-            j > 0, (cell(li, jnp.maximum(j - 1, 0), wj0) // 3) % 3, 0)
-        eprev = jnp.where(
-            i > 0,
-            cell(jnp.maximum(li - 1, 0), jnp.maximum(j, 0), wj0) % 3,
-            0)
-        move, forced_next = _decode_step(in_core, i, j, forced, code,
-                                         fprev, eprev)
-        moves_ref[0, t] = move
-        di = jnp.where(move == 0, 0, 1)
-        dj = jnp.where(move == 2, 0, 1)
-        return i - di, j - dj, t + 1, forced_next, bi0, wj0
-
-    st = (m - 1, n - 1, jnp.int32(0), jnp.int32(0),
-          jnp.asarray(m_rows, jnp.int32),   # forces the first fetch
-          jnp.asarray(n_w, jnp.int32))
-    i, j, t, _, _, _ = jax.lax.while_loop(cond, body, st)
-    count_ref[0, 0] = t
-
-
-def _window_place(i, j, seg0, m_w, S, band_r, WS):
-    """Aligned band-window placement shared by the packed walk kernels:
-    the current word-row sits ~9 below the band top (>= band_r - 9
-    word-rows = 4x that many cells walkable down) and j's segment in
-    the right aligned half (>= WS - 8 segments = 128*(WS-8) cells
-    walkable left)."""
-    bi = pl.multiple_of(
-        jnp.clip((((i >> 2) - (band_r - 9)) // 8) * 8, 0,
-                 m_w - band_r), 8)
-    gseg = seg0 + (jnp.maximum(j, 0) >> 7)
-    s0 = pl.multiple_of(
-        jnp.clip(((gseg >> 3) << 3) - (WS - 8), 0, S - WS), 8)
-    return bi, s0
-
-
-def _window_covers(i, j, bi, s0, seg0, band_r, WS, U):
-    """True iff this iteration's U sub-steps (rows i-U..i, columns
-    j-U..j, up/left neighbour reads included) stay inside window
-    (bi, s0).  The max() clamps stop edge-pinned windows from
-    re-missing forever."""
-    return jnp.logical_not(jnp.logical_or(
-        jnp.logical_or(
-            jnp.maximum(i - U, 0) >> 2 < bi,
-            i >> 2 >= bi + band_r),
-        jnp.logical_or(
-            seg0 + (jnp.maximum(j - U, 0) >> 7) < s0,
-            seg0 + (j >> 7) >= s0 + WS)))
-
-
-def _band_substeps(read_word, i, j, t, forced, accw, bi0, s0, seg0,
-                   band_r, WS, U):
-    """The U-substep move-decode body shared by the single- and
-    double-buffered packed walk kernels (straight-line unrolled,
-    chaining the ``forced`` gap-run carry; moves pack 16-per-word into
-    ``accw``).  ``read_word(li, sg, lane)`` reads one int32 band word.
-    Returns the updated (i, j, t, forced, accw)."""
-    for _ in range(U):
-        active = jnp.logical_or(i >= 0, j >= 0)
-        in_core = jnp.logical_and(i >= 0, j >= 0)
-        j0 = jnp.maximum(j, 0)
-        jl = jnp.maximum(j - 1, 0)
-        iu = jnp.maximum(i - 1, 0)
-        li = jnp.clip((jnp.maximum(i, 0) >> 2) - bi0, 0, band_r - 1)
-        liu = jnp.clip((iu >> 2) - bi0, 0, band_r - 1)
-        sg = jnp.clip(seg0 + (j0 >> 7) - s0, 0, WS - 1)
-        sgl = jnp.clip(seg0 + (jl >> 7) - s0, 0, WS - 1)
-        w = read_word(li, sg, j0 & 127)
-        wl = read_word(li, sgl, jl & 127)
-        wu = read_word(liu, sg, j0 & 127)
-        code = jnp.where(in_core, (w >> (8 * (i & 3))) & 0xFF, 0)
-        fprev = jnp.where(
-            j > 0, (((wl >> (8 * (i & 3))) & 0xFF) // 3) % 3, 0)
-        eprev = jnp.where(
-            i > 0, ((wu >> (8 * (iu & 3))) & 0xFF) % 3, 0)
-        move, forced = _decode_step(in_core, i, j, forced, code,
-                                    fprev, eprev)
-        accw = accw | (jnp.where(active, move, 0) << (2 * (t & 15)))
-        step = active.astype(jnp.int32)
-        i = i - jnp.where(move == 0, 0, 1) * step
-        j = j - jnp.where(move == 2, 0, 1) * step
-        t = t + step
-    return i, j, t, forced, accw
-
-
-def _walk_kernel_packed(nm_ref, plane_ref, moves_ref, count_ref, band_ref,
-                        sem, *, m_w, Rp, S, WS, band_r, U=8):
-    """Grid-(P,) walk over the packed kernel's row-word plane: program p
-    walks pair p, whose cell (i, j) is byte i%4 of
-    plane[i//4, p*Rp + j//128, j%128].  Pairs run sequentially on the
-    core, but each step is an SMEM band read (~ns) instead of the
-    lockstep XLA walk's ~4 us gather+scatter.
-
-    r4 rework, driven by three measured facts (scripts/walk_ablate*,
-    chain_profile):
-
-    * the int8->int32 plane bitcast the r3 walk required was a physical
-      relayout costing 35 ms per 8x10kbp group (half the walk chain!)
-      -- the DP kernel now emits int32 row-words directly and the band
-      is a 3-D (band_r, WS, LANES) window of the plane's NATIVE layout,
-      so nothing is copied outside the band DMAs;
-    * the while_loop iteration floor is ~46 ns with the body's reads,
-      writes and arithmetic nearly free on top of it, so the body
-      resolves ``U`` moves per iteration (straight-line unrolled
-      sub-steps chaining the ``forced`` gap-run carry) -- the
-      "speculative window" resolution, amortising loop overhead instead
-      of speculating on diagonal runs (the r3 7-deep diagonal extension
-      measured neutral: its lax.cond + serial reads cost what the
-      skipped iterations saved);
-    * the refetch DMA (~3 us) amortises over min(usable band rows,
-      cells), and the word packing makes the band square-ish in CELLS:
-      one (band_r, WS, 128) window covers 4*band_r rows x 128*WS cells,
-      >= ~(4*band_r - 40) diagonal steps per fetch.
-
-    Moves are packed 16-per-int32-word (2 bits each) into ``accw`` and
-    flushed one word at a time, shrinking the SMEM moves buffer and the
-    device->host transfer 16x (and with them the SMEM cap that used to
-    push long-pair groups onto the lockstep XLA walk).  Word-flush
-    invariant: t advances by exactly U while all sub-steps are active
-    (only the final iteration is partial), so with U in {1, 2, 4, 8,
-    16} a 16-boundary is crossed only at a body boundary and the
-    partial tail word is flushed once after the loop.
-    """
-    assert 16 % U == 0
-    pid = pl.program_id(0)
-    seg0 = pid * Rp
-    m = nm_ref[pid, 1]
-    n = nm_ref[pid, 0]
-
-    def refetch(i, j):
-        bi, s0 = _window_place(i, j, seg0, m_w, S, band_r, WS)
-        cp = pltpu.make_async_copy(
-            plane_ref.at[pl.ds(bi, band_r), pl.ds(s0, WS), :],
-            band_ref, sem)
-        cp.start()
-        cp.wait()
-        return bi, s0
-
-    def cond(st):
-        i, j, t, forced, accw, bi0, s0 = st
-        return jnp.logical_or(i >= 0, j >= 0)
-
-    def body(st):
-        i, j, t, forced, accw, bi0, s0 = st
-        in_core = jnp.logical_and(i >= 0, j >= 0)
-        miss = jnp.logical_and(
-            in_core,
-            jnp.logical_not(_window_covers(i, j, bi0, s0, seg0,
-                                           band_r, WS, U)))
-
-        bi0, s0 = jax.lax.cond(miss, lambda _: refetch(i, j),
-                               lambda _: (bi0, s0), None)
-
-        t0 = t
-        i, j, t, forced, accw = _band_substeps(
-            lambda li, sg, lane: band_ref[li, sg, lane],
-            i, j, t, forced, accw, bi0, s0, seg0, band_r, WS, U)
-
-        # completed a 16-move word exactly at the body boundary
-        full = jnp.logical_and(t != t0, (t & 15) == 0)
-
-        @pl.when(full)
-        def _():
-            moves_ref[pid, (t - 1) >> 4] = accw
-
-        accw = jnp.where(full, 0, accw)
-        return i, j, t, forced, accw, bi0, s0
-
-    st = (m - 1, n - 1, jnp.int32(0), jnp.int32(0), jnp.int32(0),
-          jnp.asarray(2 ** 30, jnp.int32),   # forces the first fetch
-          jnp.asarray(2 ** 30, jnp.int32))
-    i, j, t, _, accw, _, _ = jax.lax.while_loop(cond, body, st)
-    # partial tail word (harmlessly writes the unused next word when
-    # t % 16 == 0 -- everything past `count` is ignored downstream)
-    moves_ref[pid, t >> 4] = accw
-    count_ref[pid, 0] = t
-
-
-def _walk_kernel_packed_db(nm_ref, plane_ref, moves_ref, count_ref,
-                           band_ref, sems, *, m_w, Rp, S, WS, band_r,
-                           U=8):
-    """Double-buffered variant of :func:`_walk_kernel_packed`: two band
-    buffers (``band_ref`` is (2, band_r, WS, LANES) SMEM) and a DMA
-    semaphore pair.  After every band switch the PREDICTED next window
-    -- the walk exits bands through their top on near-diagonal
-    alignments, so place the window at (band top - 1, j - di) -- is
-    prefetched into the idle buffer; on a miss whose prefetch covers
-    the walk position the switch is a buffer flip (no DMA wait on the
-    critical path).  A wrong prediction (gap-heavy horizontal run)
-    falls back to a synchronous fetch, so exactness never depends on
-    the prediction.  Saves the ~3 us refetch stall every ~4*band_r
-    steps that the single-buffer walk pays (~25 ns/step of its
-    ~137 ns/step body)."""
-    assert 16 % U == 0
-    pid = pl.program_id(0)
-    seg0 = pid * Rp
-    m = nm_ref[pid, 1]
-    n = nm_ref[pid, 0]
-
-    def place(i, j):
-        return _window_place(i, j, seg0, m_w, S, band_r, WS)
-
-    def start(buf, bi, s0):
-        return pltpu.make_async_copy(
-            plane_ref.at[pl.ds(bi, band_r), pl.ds(s0, WS), :],
-            band_ref.at[buf], sems.at[buf])
-
-    def covers(i, j, bi, s0):
-        return _window_covers(i, j, bi, s0, seg0, band_r, WS, U)
-
-    def cond(st):
-        i, j = st[0], st[1]
-        return jnp.logical_or(i >= 0, j >= 0)
-
-    def body(st):
-        i, j, t, forced, accw, bi0, s0, buf, pbi, ps0, pv = st
-        in_core = jnp.logical_and(i >= 0, j >= 0)
-        miss = jnp.logical_and(in_core,
-                               jnp.logical_not(covers(i, j, bi0, s0)))
-
-        def on_miss(_):
-            other = 1 - buf
-            # drain any in-flight prefetch (it targets `other`)
-            @pl.when(pv != 0)
-            def _():
-                start(other, pbi, ps0).wait()
-
-            hit = jnp.logical_and(pv != 0, covers(i, j, pbi, ps0))
-            nbi, ns0 = jax.lax.cond(
-                hit, lambda _: (pbi, ps0),
-                lambda _: place(i, j), None)
-
-            @pl.when(jnp.logical_not(hit))
-            def _():
-                cp = start(other, nbi, ns0)
-                cp.start()
-                cp.wait()
-
-            # prefetch the predicted next window into the now-idle
-            # buffer (exit through the band top, diagonal motion)
-            ip = 4 * nbi - 1
-            jp = jnp.maximum(j - (i - ip), 0)
-            qbi, qs0 = place(jnp.maximum(ip, 0), jp)
-            want = jnp.logical_and(
-                ip >= 0, jnp.logical_or(qbi != nbi, qs0 != ns0))
-
-            @pl.when(want)
-            def _():
-                start(buf, qbi, qs0).start()
-
-            return (nbi, ns0, other, qbi, qs0,
-                    jnp.where(want, 1, 0).astype(jnp.int32))
-
-        bi0, s0, buf, pbi, ps0, pv = jax.lax.cond(
-            miss, on_miss,
-            lambda _: (bi0, s0, buf, pbi, ps0, pv), None)
-
-        t0 = t
-        i, j, t, forced, accw = _band_substeps(
-            lambda li, sg, lane: band_ref[buf, li, sg, lane],
-            i, j, t, forced, accw, bi0, s0, seg0, band_r, WS, U)
-
-        full = jnp.logical_and(t != t0, (t & 15) == 0)
-
-        @pl.when(full)
-        def _():
-            moves_ref[pid, (t - 1) >> 4] = accw
-
-        accw = jnp.where(full, 0, accw)
-        return i, j, t, forced, accw, bi0, s0, buf, pbi, ps0, pv
-
-    st = (m - 1, n - 1, jnp.int32(0), jnp.int32(0), jnp.int32(0),
-          jnp.asarray(2 ** 30, jnp.int32),   # forces the first fetch
-          jnp.asarray(2 ** 30, jnp.int32),
-          jnp.int32(0), jnp.int32(0), jnp.int32(0), jnp.int32(0))
-    i, j, t, _, accw, bi0, s0, buf, pbi, ps0, pv = jax.lax.while_loop(
-        cond, body, st)
-
-    # drain a leftover prefetch before the kernel exits
-    @pl.when(pv != 0)
-    def _():
-        start(1 - buf, pbi, ps0).wait()
-
-    moves_ref[pid, t >> 4] = accw
-    count_ref[pid, 0] = t
-
-
-def _walk_kernel_packed_pair2(nm_ref, plane_ref, moves_ref, count_ref,
-                              band_ref, sems, *, m_w, Rp, S, WS,
-                              band_r, U=8):
-    """Two-pair-interleaved variant of :func:`_walk_kernel_packed`:
-    grid (P//2,), program q walks pairs 2q and 2q+1 in ONE while loop
-    with both pairs' U-substep decode chains in the same straight-line
-    body.  The single-pair walk is bound by each step's serial 3-read
-    decode chain (~137 ns/step at U=8, r4 accounting) on the in-order
-    scalar core; a second INDEPENDENT chain in the same basic block
-    gives the static scheduler work to fill those load-use stalls, so
-    two pairs advance per ~1 chain latency.  Band misses overlap too:
-    both pairs' refetch DMAs start before either is waited.  Each pair
-    keeps its own (band_r, WS, LANES) SMEM window (``band_ref`` is
-    (2, band_r, WS, LANES)); exactness never depends on pairing -- a
-    finished pair's substeps are masked no-ops while its partner
-    drains."""
-    assert 16 % U == 0
-    q = pl.program_id(0)
-    pid0 = 2 * q
-    pids = (pid0, pid0 + 1)
-    seg0s = (pid0 * Rp, (pid0 + 1) * Rp)
-
-    def copy(x, bi, s0):
-        return pltpu.make_async_copy(
-            plane_ref.at[pl.ds(bi, band_r), pl.ds(s0, WS), :],
-            band_ref.at[x], sems.at[x])
-
-    def cond(st):
-        iA, jA, iB, jB = st[0], st[1], st[7], st[8]
-        return jnp.logical_or(
-            jnp.logical_or(iA >= 0, jA >= 0),
-            jnp.logical_or(iB >= 0, jB >= 0))
-
-    def body(st):
-        (iA, jA, tA, fA, wA, biA, s0A,
-         iB, jB, tB, fB, wB, biB, s0B) = st
-        pairs = ((iA, jA, biA, s0A), (iB, jB, biB, s0B))
-        misses, places = [], []
-        for x, (i, j, bi0, s0) in enumerate(pairs):
-            in_core = jnp.logical_and(i >= 0, j >= 0)
-            miss = jnp.logical_and(
-                in_core,
-                jnp.logical_not(_window_covers(i, j, bi0, s0, seg0s[x],
-                                               band_r, WS, U)))
-
-            def fetch(_, x=x, i=i, j=j):
-                bi, s0 = _window_place(i, j, seg0s[x], m_w, S,
-                                       band_r, WS)
-                copy(x, bi, s0).start()
-                return bi, s0
-
-            nbi, ns0 = jax.lax.cond(miss, fetch,
-                                    lambda _, bi0=bi0, s0=s0: (bi0, s0),
-                                    None)
-            misses.append(miss)
-            places.append((nbi, ns0))
-        # wait AFTER both starts so the two DMAs overlap
-        for x in range(2):
-            @pl.when(misses[x])
-            def _(x=x):
-                copy(x, places[x][0], places[x][1]).wait()
-        (biA, s0A), (biB, s0B) = places
-
-        tA0, tB0 = tA, tB
-        iA, jA, tA, fA, wA = _band_substeps(
-            lambda li, sg, lane: band_ref[0, li, sg, lane],
-            iA, jA, tA, fA, wA, biA, s0A, seg0s[0], band_r, WS, U)
-        iB, jB, tB, fB, wB = _band_substeps(
-            lambda li, sg, lane: band_ref[1, li, sg, lane],
-            iB, jB, tB, fB, wB, biB, s0B, seg0s[1], band_r, WS, U)
-
-        fullA = jnp.logical_and(tA != tA0, (tA & 15) == 0)
-        fullB = jnp.logical_and(tB != tB0, (tB & 15) == 0)
-
-        @pl.when(fullA)
-        def _():
-            moves_ref[pids[0], (tA - 1) >> 4] = wA
-
-        @pl.when(fullB)
-        def _():
-            moves_ref[pids[1], (tB - 1) >> 4] = wB
-
-        wA = jnp.where(fullA, 0, wA)
-        wB = jnp.where(fullB, 0, wB)
-        return (iA, jA, tA, fA, wA, biA, s0A,
-                iB, jB, tB, fB, wB, biB, s0B)
-
-    far = jnp.asarray(2 ** 30, jnp.int32)   # forces the first fetch
-    st = (nm_ref[pids[0], 1] - 1, nm_ref[pids[0], 0] - 1,
-          jnp.int32(0), jnp.int32(0), jnp.int32(0), far, far,
-          nm_ref[pids[1], 1] - 1, nm_ref[pids[1], 0] - 1,
-          jnp.int32(0), jnp.int32(0), jnp.int32(0), far, far)
-    out = jax.lax.while_loop(cond, body, st)
-    (iA, jA, tA, _, wA, _, _, iB, jB, tB, _, wB, _, _) = out
-    moves_ref[pids[0], tA >> 4] = wA
-    moves_ref[pids[1], tB >> 4] = wB
-    count_ref[pids[0], 0] = tA
-    count_ref[pids[1], 0] = tB
-
-
-def _walk_kernel_bounded(scal_ref, prevw_ref, plane_ref, out_ref,
-                         vals_ref, band_ref, sem,
-                         *, m_w, Rp, WS, band_r, CAP, U=8):
-    """Chunk-bounded banded walk over a single pair's 4-row-word plane
-    (m_w = mc//4 word-rows covering chunk rows [base, base+mc)): the
-    bounded counterpart of :func:`_walk_kernel_packed` for the chunked
-    traced path (psa_pallas.psa_align_traced_chunked).  Emits raw moves
-    into a CAP-bounded log (the caller scatters them at t..t+count-1;
-    an (m+n)-wide SMEM buffer would not fit for window-top pairs) and
-    exits early when the log fills -- the driver re-enters.  The
-    cross-chunk vertical gap-run lookup at the chunk's first row reads
-    ``prevw_ref`` (the previous chunk's last plane row, 4 column codes
-    per int32 word)."""
-    i0 = scal_ref[0, 0]
-    j0 = scal_ref[0, 1]
-    forced0 = scal_ref[0, 2]
-    base = scal_ref[0, 3]
-
-    def refetch(i, j):
-        lr = jnp.maximum(i - base, 0)
-        bi = pl.multiple_of(
-            jnp.clip((((lr >> 2) - (band_r - 9)) // 8) * 8, 0,
-                     m_w - band_r), 8)
-        seg = jnp.maximum(j, 0) >> 7
-        s0 = pl.multiple_of(
-            jnp.clip(((seg >> 3) << 3) - (WS - 8), 0, Rp - WS), 8)
-        cp = pltpu.make_async_copy(
-            plane_ref.at[pl.ds(bi, band_r), pl.ds(s0, WS), :],
-            band_ref, sem)
-        cp.start()
-        cp.wait()
-        return bi, s0
-
-    def cell(lr, jj, bi0, s0):
-        li = jnp.clip((lr >> 2) - bi0, 0, band_r - 1)
-        sg = jnp.clip((jj >> 7) - s0, 0, WS - 1)
-        w = band_ref[li, sg, jj & 127]
-        return (w >> (8 * (lr & 3))) & 0xFF
-
-    def cond(st):
-        i, j, forced, cnt, bi0, s0 = st
-        more = jnp.logical_or(i >= 0, j >= 0)
-        in_chunk = jnp.logical_or(i >= base,
-                                  jnp.logical_and(base == 0, j >= 0))
-        # i - base < 4*m_w keeps an out-of-chunk-ABOVE entry a no-op
-        # (the fused two-chunk walk chains kernels unconditionally; an
-        # above-chunk entry would otherwise spin on refetch misses)
-        return jnp.logical_and(
-            jnp.logical_and(more, in_chunk),
-            jnp.logical_and(cnt < CAP - U,
-                            jnp.maximum(i - base, 0) < 4 * m_w))
-
-    def body(st):
-        i, j, forced, cnt, bi0, s0 = st
-        in_core = jnp.logical_and(i >= base, j >= 0)
-        miss = jnp.logical_and(in_core, jnp.logical_or(
-            jnp.logical_or(
-                jnp.maximum(i - U - base, 0) >> 2 < bi0,
-                (jnp.maximum(i - base, 0) >> 2) >= bi0 + band_r),
-            jnp.logical_or(
-                (jnp.maximum(j - U, 0) >> 7) < s0,
-                (j >> 7) >= s0 + WS)))
-        bi0, s0 = jax.lax.cond(miss, lambda _: refetch(i, j),
-                               lambda _: (bi0, s0), None)
-
-        for _ in range(U):
-            more = jnp.logical_or(i >= 0, j >= 0)
-            live = jnp.logical_and(more, jnp.logical_or(
-                i >= base, jnp.logical_and(base == 0, j >= 0)))
-            in_core = jnp.logical_and(i >= base, j >= 0)
-            lr = jnp.maximum(i - base, 0)
-            j0c = jnp.maximum(j, 0)
-            code = jnp.where(in_core, cell(lr, j0c, bi0, s0), 0)
-            fprev = jnp.where(
-                j > 0,
-                cell(lr, jnp.maximum(j - 1, 0), bi0, s0) // 3 % 3, 0)
-            upw = jnp.where(
-                i - 1 >= base,
-                cell(jnp.maximum(lr - 1, 0), j0c, bi0, s0),
-                (prevw_ref[0, j0c >> 2] >> (8 * (j0c & 3))) & 0xFF)
-            eprev = jnp.where(i > 0, upw % 3, 0)
-            move, forced_n = _decode_step(in_core, i, j, forced, code,
-                                          fprev, eprev)
-            forced = jnp.where(live, forced_n, forced)
-
-            @pl.when(live)
-            def _():
-                vals_ref[0, cnt] = move
-
-            step = live.astype(jnp.int32)
-            i = i - jnp.where(move == 0, 0, 1) * step
-            j = j - jnp.where(move == 2, 0, 1) * step
-            cnt = cnt + step
-
-        return i, j, forced, cnt, bi0, s0
-
-    st = (i0, j0, forced0, jnp.int32(0),
-          jnp.asarray(2 ** 30, jnp.int32),
-          jnp.asarray(2 ** 30, jnp.int32))
-    i, j, forced, cnt, _, _ = jax.lax.while_loop(cond, body, st)
-    out_ref[0, 0] = i
-    out_ref[0, 1] = j
-    out_ref[0, 2] = forced
-    out_ref[0, 3] = cnt
-
-
-@functools.partial(jax.jit, static_argnames=("CAP",))
-def _decode_moves_bounded_banded(plane_w3, prevw, i, j, t, forced,
-                                 moves, base, CAP):
-    """Banded counterpart of :func:`_decode_moves_bounded`.
-    ``plane_w3``: the chunk's (mc//4, Rp, LANES) int32 row-word plane
-    in its NATIVE 3-D layout (no reshape/bitcast); ``prevw``: the
-    previous chunk's last row packed 4 codes per word, (1, n_pad//4)
-    int32.  Returns (i, j, t, forced, moves)."""
-    return _bounded_banded_ops(plane_w3, prevw, i, j, t, forced,
-                               moves, base, CAP)
-
-
-@functools.partial(jax.jit, static_argnames=("CAP",))
-def _decode_moves_bounded_banded2(plane_hi, prevw_hi, plane_lo,
-                                  prevw_lo, i, j, t, forced, moves,
-                                  base_hi, CAP):
-    """Walk TWO adjacent chunks per dispatch (banded): chains the
-    device (i, j, t, forced, moves) between the two kernel calls with
-    no host round-trip, halving the chunked backward's per-chunk sync
-    RTTs.  Both calls run unconditionally -- the bounded kernel's
-    chunk-span cond clause makes the lo call a no-op when the hi walk
-    finished, CAP-exited inside its chunk, or base_hi == 0."""
-    mc = plane_hi.shape[0] * 4
-    i, j, t, forced, moves = _bounded_banded_ops(
-        plane_hi, prevw_hi, i, j, t, forced, moves, base_hi, CAP)
-    return _bounded_banded_ops(plane_lo, prevw_lo, i, j, t, forced,
-                               moves, base_hi - mc, CAP)
-
-
-def _bounded_banded_ops(plane_w3, prevw, i, j, t, forced, moves, base,
-                        CAP):
-    m_w, Rp, L = plane_w3.shape
-    band_r = min(_WBAND_PSA_R, m_w)
-    WS = min(_BAND_WS, Rp)
-    kernel = functools.partial(_walk_kernel_bounded, m_w=m_w, Rp=Rp,
-                               WS=WS, band_r=band_r, CAP=CAP)
-    scal = jnp.stack([i, j, forced,
-                      jnp.asarray(base, jnp.int32)]).reshape(1, 4)
-    out, vals = pl.pallas_call(
-        kernel,
-        interpret=jax.default_backend() != "tpu",
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pl.ANY)],
-        out_shape=(jax.ShapeDtypeStruct((1, 4), jnp.int32),
-                   jax.ShapeDtypeStruct((1, CAP), jnp.int32)),
-        out_specs=(pl.BlockSpec(memory_space=pltpu.SMEM),
-                   pl.BlockSpec(memory_space=pltpu.SMEM)),
-        scratch_shapes=[pltpu.SMEM((band_r, WS, L), jnp.int32),
-                        pltpu.SemaphoreType.DMA],
-    )(scal, prevw, plane_w3)
-    i2, j2, forced2, count = out[0, 0], out[0, 1], out[0, 2], out[0, 3]
-    maxlen = moves.shape[0]
-    tt = jnp.arange(CAP, dtype=jnp.int32)
-    idx = jnp.where(tt < count, t + tt, jnp.int32(maxlen))
-    moves2 = jnp.concatenate([moves, jnp.zeros((1,), moves.dtype)])
-    moves2 = moves2.at[idx].set(
-        jnp.where(tt < count, vals[0], 0).astype(moves.dtype),
-        mode="drop")
-    return i2, j2, t + count, forced2, moves2[:maxlen]
-
-
-_WBAND_PSA_R = 24   # bounded-PSA band word-rows (x4 rows each)
-
-
-def _bounded_banded_ok(mc, Rp, n_pad):
-    """Gate for the banded bounded PSA walk: window alignment + the
-    packed prev-row SMEM budget."""
-    import os
-    if os.environ.get("TSTA_BANDED_WALK", "1") in ("", "0"):
-        return False
-    m_w = mc // 4
-    return (mc % 4 == 0 and (m_w <= _WBAND_PSA_R or m_w % 8 == 0)
-            and (Rp <= _BAND_WS or Rp % 8 == 0)
-            and n_pad <= 1 << 20)
-
-
-def packed_words_len(maxlen):
-    """Words in a packed 2-bit move row of up to ``maxlen`` moves (+1
-    slack word for the unconditional tail flush)."""
-    return (maxlen + 15) // 16 + 1
-
-
-def pack_moves_words(moves):
-    """(P, L) int8 moves -> (P, packed_words_len(L)) int32, 16 moves of
-    2 bits per word, LSB-first -- the lockstep walk's output converted
-    to the banded kernel's wire format (disjoint bit positions, so the
-    sum is an OR)."""
-    P, L = moves.shape
-    W = packed_words_len(L)
-    pad = W * 16 - L
-    m = jnp.pad(moves.astype(jnp.int32), ((0, 0), (0, pad)))
-    m = m.reshape(P, W, 16)
-    sh = 2 * jnp.arange(16, dtype=jnp.int32)
-    return (m << sh).sum(axis=2, dtype=jnp.int32)
-
-
-def unpack_moves(words, count):
-    """One pair's packed int32 move words -> (count,) int8 moves."""
-    w = np.asarray(words, np.int32)[: (int(count) + 15) // 16]
-    w = w.view(np.uint32)
-    m = (w[:, None] >> (2 * np.arange(16, dtype=np.uint32))) & 3
-    return m.reshape(-1)[: int(count)].astype(np.int8)
-
-
-_BAND_RW = 32   # packed-walk band word-rows (x4 logical rows each;
-                # multiple of 8 for the DMA row-start tiling)
-_BAND_WS = 16   # packed-walk band segments (x128 cells each; multiple
-                # of 8 -- dim 1 of the 3-D plane window is the tiled
-                # sublane dim, so starts must be provably 8-aligned;
-                # the window is placed on an aligned 8-segment grid
-                # with j's segment in the right half, guaranteeing
-                # >= (WS-8)*128 cells walkable left per fetch)
-
-
-@functools.partial(jax.jit, static_argnames=("Rp", "spec", "U", "db",
-                                              "pair2"))
-def _decode_moves_banded_packed(plane, nm, Rp, spec=True, U=8, db=True,
-                                pair2=False):
-    """Pallas banded walk over the grouped row-word plane
-    (m_pad // 4, S, LANES) int32 from psa_diff._psa_diff_traced_call.
-    Returns (words, counts): words (P, packed_words_len(m_pad + n_pad))
-    int32 with 16 2-bit moves per word (see :func:`pack_moves_words`),
-    counts (P,) int32.  Requires Rp % 4 == 0 (512-aligned per-pair
-    width), m_pad % 8 == 0, and S = P*Rp either <= _BAND_WS (whole
-    width fits one window) or a multiple of 8 (aligned window starts).
-    ``spec`` selects the U=8 unrolled window body (TSTA_SPEC_WALK=0 in
-    the caller drops to U=1 for A/B); ``db`` the double-buffered band
-    (predicted-next-window prefetch, :func:`_walk_kernel_packed_db`;
-    the caller maps TSTA_WALK_DB=0 to False for A/B)."""
-    m_w, S, L = plane.shape
-    m_pad = m_w * 4
-    P = S // Rp
-    n_pad = Rp * L
-    maxlen = m_pad + n_pad
-    band_r = min(_BAND_RW, m_w)
-    if (Rp % 4 or m_pad % 8 or m_pad < 24
-            or (m_w > band_r and m_w % 8)
-            or (S > _BAND_WS and S % 8)):
-        raise ValueError("banded packed walk needs Rp %% 4 == 0, "
-                         "m_pad %% 8 == 0 >= 24, and aligned windows "
-                         "(got m_pad=%d S=%d)" % (m_pad, S))
-    WS = min(_BAND_WS, S)
-    db = db and m_w > band_r   # single-window planes never refetch
-    pair2 = pair2 and P % 2 == 0 and P >= 2 and spec
-    if pair2:
-        kern_fn, grid = _walk_kernel_packed_pair2, (P // 2,)
-        two_bands = True   # one (band_r, WS, L) window PER PAIR
-    else:
-        kern_fn = _walk_kernel_packed_db if db else _walk_kernel_packed
-        grid = (P,)
-        two_bands = db     # double buffering
-    kernel = functools.partial(kern_fn, m_w=m_w, Rp=Rp,
-                               S=S, WS=WS, band_r=band_r,
-                               U=U if spec else 1)
-    words, counts = pl.pallas_call(
-        kernel,
-        grid=grid,
-        interpret=jax.default_backend() != "tpu",
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.ANY)
-                  if not hasattr(pltpu, "HBM")
-                  else pl.BlockSpec(memory_space=pltpu.HBM)],
-        out_shape=(
-            jax.ShapeDtypeStruct((P, packed_words_len(maxlen)),
-                                 jnp.int32),
-            jax.ShapeDtypeStruct((P, 1), jnp.int32),
-        ),
-        # full-array SMEM outputs written at dynamic row pid inside the
-        # kernel (per-pid blocks violate the (8, 128) rule)
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM(((2, band_r, WS, L) if two_bands
-                        else (band_r, WS, L)), jnp.int32),
-            pltpu.SemaphoreType.DMA((2,)) if two_bands
-            else pltpu.SemaphoreType.DMA,
-        ],
-    )(nm, plane)
-    return words, counts[:, 0]
-
-
-@functools.partial(jax.jit, static_argnames=("n_stride",))
-def _decode_moves_banded(plane, m, n, n_stride=None):
-    """Pallas walk with SMEM band prefetch; same contract as
-    _decode_moves.  ``plane`` is (m, n_stride) int8 with the walk
-    confined to the first n columns; requires m >= 64, n_stride >= 128
-    and n_stride % 4 == 0 (SMEM band is _BAND_R x n_stride/4 int32
-    words, so keep n_stride <= ~16k to stay inside the SMEM budget)."""
-    m_rows, n_stride2 = int(plane.shape[0]), int(plane.shape[1])
-    n_stride = n_stride or n_stride2
-    if m_rows % 8 or m_rows < 24:
-        raise ValueError("banded walk needs row count %% 8 == 0 and >= 24")
-    n_w = n_stride // 4
-    if n_w % 128:
-        raise ValueError("banded walk needs n_stride %% 512 == 0")
-    band_w = min(_BAND_W, n_w)
-    band_r = min(_BAND_R, m_rows)
-    plane32 = jax.lax.bitcast_convert_type(
-        plane.reshape(m_rows, n_w, 4), jnp.int32)
-    nm = jnp.stack([jnp.asarray(n, jnp.int32),
-                    jnp.asarray(m, jnp.int32)]).reshape(1, 2)
-    kernel = functools.partial(_walk_kernel, m_rows=m_rows, n_w=n_w,
-                               band_w=band_w, band_r=band_r)
-    moves, count = pl.pallas_call(
-        kernel,
-        interpret=jax.default_backend() != "tpu",
-        # explicit HBM: with pl.ANY the compiler placed the 100 MB plane
-        # in VMEM and then failed tiling checks on the band slice
-        in_specs=[pl.BlockSpec(memory_space=pltpu.SMEM),
-                  pl.BlockSpec(memory_space=pltpu.ANY)
-                  if not hasattr(pltpu, "HBM")
-                  else pl.BlockSpec(memory_space=pltpu.HBM)],
-        out_shape=(
-            jax.ShapeDtypeStruct((1, m_rows + n_stride), jnp.int32),
-            jax.ShapeDtypeStruct((1, 1), jnp.int32),
-        ),
-        out_specs=(
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-            pl.BlockSpec(memory_space=pltpu.SMEM),
-        ),
-        scratch_shapes=[
-            pltpu.SMEM((band_r, band_w), jnp.int32),
-            pltpu.SemaphoreType.DMA,
-        ],
-    )(nm, plane32)
-    return moves[0].astype(jnp.int8), count[0, 0]

@@ -1,8 +1,8 @@
-"""Column-sharded PSA for sequences too long for one chip.
+"""Column-sharded PSA for one long pair over several devices.
 
 The reference's analogue is the anti-diagonal block wavefront across a
 thread pool (psa/psa.c:619-639): tiles of one anti-diagonal run in
-parallel, with a spin barrier between diagonals.  On a TPU mesh the same
+parallel, with a spin barrier between diagonals.  On a device mesh the same
 dependency structure becomes a *device pipeline* over the ``seq`` axis:
 
 * the horizontal sequence (columns) is sharded across devices;
@@ -10,7 +10,7 @@ dependency structure becomes a *device pipeline* over the ``seq`` axis:
   ``d`` processes row-block ``s - d`` (devices trail their left neighbor
   by one step, exactly like tiles on consecutive anti-diagonals);
 * between steps each device passes its right-edge state to its right
-  neighbor with ``lax.ppermute`` over ICI: per row, the H value at the
+  neighbor with ``lax.ppermute`` (NCCL on GPUs): per row, the H value at the
   shard's last column and the running F-chain prefix
   ``max_k (C(k) - k*e)`` (see ops/psa_scan.py for why this closed form
   makes F exact), i.e. (T+1) + T scalars -- the tile-edge exchange the

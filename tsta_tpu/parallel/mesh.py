@@ -2,13 +2,13 @@
 
 The reference's only scheduler is a fixed-size pthread pool with a spin
 barrier (pthreadpool/pthreadpool.c; driver loops psa/psa.c:619-639).  The
-TPU-native equivalent is a ``jax.sharding.Mesh`` with two logical axes:
+device equivalent is a ``jax.sharding.Mesh`` with two logical axes:
 
 * ``data`` -- independent alignment problems (batched pairs / MSA reads),
   the analogue the reference lacks entirely (it is one-problem-per-process);
 * ``seq``  -- column sharding of a single long problem (the analogue of
   the reference's anti-diagonal tile wavefront, SURVEY.md section 2 items
-  2-3), used by parallel/longseq.py with neighbor exchange over ICI.
+  2-3), used by parallel/longseq.py with neighbor exchange between devices.
 
 Multi-host initialisation goes through ``jax.distributed`` when the env
 provides a coordinator (no-op on a single host).

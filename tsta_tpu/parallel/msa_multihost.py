@@ -1,7 +1,7 @@
 """Multi-host progressive MSA: replicated graph, globally column-sharded
 DP, per-round alignment-delta broadcast.
 
-TPU-native replacement for the reference's shared-memory POA graph
+The replacement for the reference's shared-memory POA graph
 (msa/c-t-simd.c:659-977: every pthread mutates one global graph under a
 mutex/spin barrier).  Across hosts there is no shared memory; instead
 (SURVEY.md section 5; docs/ARCHITECTURE.md "graph-delta broadcast"):
@@ -16,7 +16,7 @@ mutex/spin barrier).  Across hosts there is no shared memory; instead
   segment-by-segment from the last column shard towards the first,
   each segment on the process that owns those columns, with the tiny
   (row, state, done) handoff and the running alignment column map
-  broadcast over DCN (``multihost_utils.broadcast_one_to_all``) --
+  broadcast between hosts (``multihost_utils.broadcast_one_to_all``) --
   O(process_count) broadcasts of (n,) int32 per round;
 * the completed alignment map is the round's graph delta:
   ``PoaGraph.apply_delta`` replays the merge -- a deterministic pure
